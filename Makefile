@@ -12,4 +12,4 @@ bench:
 	python bench.py
 
 smoke:
-	timeout 1800 python -u tpu_smoke.py
+	timeout 1200 python -u chip_smoke.py

@@ -1,4 +1,4 @@
-"""hail_tpu: a TPU-native data-analysis / genomics engine with the
+"""hail_tpu: an accelerator-native data-analysis / genomics engine with the
 capabilities of Hail (import as `import hail_tpu as hl`).
 
 See ARCHITECTURE.md for the layer map and SURVEY.md for the reference
@@ -140,4 +140,4 @@ from . import ggplot
 
 __version__ = '0.1.0'
 __pip_version__ = __version__
-__revision__ = 'tpu-native-r1'
+__revision__ = 'device-native-r1'

@@ -112,7 +112,8 @@ class Backend:
         "use_device_sort": ("HAIL_TPU_USE_DEVICE_SORT", "1"),
         "max_partition_attempts": ("HAIL_TPU_MAX_PARTITION_ATTEMPTS", "3"),
         "partition_cache_bytes": ("HAIL_TPU_PARTITION_CACHE_BYTES", str(512 * 1024 * 1024)),
-        "device_cache_bytes": ("HAIL_TPU_DEVICE_CACHE_BYTES", str(8 * 1024 * 1024 * 1024)),
+        # default: a share of the device's memory limit (ops/devcache.py)
+        "device_cache_bytes": ("HAIL_TPU_DEVICE_CACHE_BYTES", None),
     }
 
     _stage_counter = 0

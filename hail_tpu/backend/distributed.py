@@ -1,12 +1,12 @@
 """Multihost backend: shard partitions across jax processes.
 
-TPU-native replacement for the reference's Spark/Batch distributed backends
+Device-native replacement for the reference's Spark/Batch distributed backends
 (`backend/spark/SparkBackend.scala:206-294`, `service/ServiceBackend.scala`):
 under `jax.distributed`, every host runs the same program; partition contexts
 are assigned round-robin by `jax.process_index()`; per-partition results are
 exchanged via a host-gather over the global device mesh (bytes → u8 tensors →
 `jax.experimental.multihost_utils.process_allgather`), so the data plane is
-ICI/DCN instead of the reference's cloud-object-storage files
+the device interconnect instead of the reference's cloud-object-storage files
 (`dev-docs/hail-query/query-on-batch.md:9-13`).
 
 On a single process this degrades to the thread-pool LocalBackend path, so
@@ -107,7 +107,6 @@ def alltoall_bytes(payloads: Sequence[bytes]) -> List[bytes]:
     import jax
     import numpy as np
     from jax.experimental import multihost_utils
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
     n = jax.process_count()
@@ -126,7 +125,7 @@ def alltoall_bytes(payloads: Sequence[bytes]) -> List[bytes]:
     sh = NamedSharding(mesh, P('p'))
     garr = jax.make_array_from_single_device_arrays(
         (n * n, maxlen), sh, [jax.device_put(local, per_proc[pid])])
-    f = shard_map(
+    f = jax.shard_map(
         lambda x: jax.lax.all_to_all(x, 'p', split_axis=0, concat_axis=0,
                                      tiled=True),
         mesh=mesh, in_specs=P('p'), out_specs=P('p'))

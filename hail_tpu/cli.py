@@ -7,7 +7,7 @@
     python -m hail_tpu devices
 
 The dataproc/hdinsight cluster-management subcommands of the reference manage
-Spark clusters and have no TPU analogue; `devices` reports the jax platform.
+Spark clusters and have no analogue here; `devices` reports the jax platform.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Reference surface: `hail/python/hail/experimental/datasets.py` (load_dataset),
 `db.py` (DatasetVersion / Dataset / DB), `datasets_metadata.py`, `lens.py`.
 
-TPU-native stance — zero-egress by default.  The registry is resolved in
+Zero-egress by default.  The registry is resolved in
 order:
 
 1. an explicit ``config=`` dict or ``url=`` path handed to :class:`DB`,

@@ -1,6 +1,6 @@
 """Vectorized aggregators: init/seq/comb/result split.
 
-TPU-native analogue of the reference's staged aggregators
+Vectorized analogue of the reference's staged aggregators
 (`is/hail/expr/ir/agg/`, extracted by `agg/Extract.scala:26-146`): each
 aggregator computes a vectorized partial state per partition (a reduction
 along the given axes of the columnar batch), partials combine as a monoid

@@ -1,6 +1,6 @@
 """Columnar value plane: vectorized columns with missing masks.
 
-This is the TPU-native replacement for the reference's Region/PType/UnsafeRow
+This is the columnar replacement for the reference's Region/PType/UnsafeRow
 off-heap row plane (`is/hail/annotations/`, `types/physical/`): a partition
 materializes to a `Batch` of columns. Numeric/bool/call columns are numpy
 arrays (1-D for table rows, 2-D `(n_rows, n_cols)` for matrix entries);

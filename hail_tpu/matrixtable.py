@@ -5,7 +5,7 @@ entries are dense 2-D `(n_rows, n_cols)` columnar blocks per partition
 (ARCHITECTURE.md decision 3), not per-row arrays as in the reference's
 `LowerMatrixIR` lowering. Row fields broadcast as (R,1) and col fields as
 (1,C) into entry context, so entry expressions and aggregations are pure
-vectorized reductions — the TPU-friendly layout (device tier consumes these
+vectorized reductions — the accelerator-friendly layout (device tier consumes these
 same blocks).
 """
 

@@ -3,8 +3,8 @@
 Capability parity with reference `hail/python/hail/methods/relatedness/`
 (`king.py`, `pc_relate.py:38`, `identity_by_descent` → C++ SIMD IBS kernel
 `hail/c/ibs.cpp` + `methods/IBSFFI.scala`). The pairwise kernels are
-indicator-matrix matmuls — exactly the MXU-friendly formulation (an int8
-einsum replaces the reference's SIMD popcount loop).
+indicator-matrix matmuls (an int8 GEMM replaces the reference's SIMD
+popcount loop).
 """
 
 from __future__ import annotations
@@ -201,8 +201,7 @@ def pc_relate(call_expr, min_individual_maf: float, *, k: Optional[int] = None,
 
 
 def identity_by_descent(dataset: MatrixTable, maf=None, bounded: bool = True,
-                        min: Optional[float] = None, max: Optional[float] = None,
-                        *, _use_pallas: bool = True) -> Table:
+                        min: Optional[float] = None, max: Optional[float] = None) -> Table:
     """PLINK-style method-of-moments IBD (reference `methods/IBD` + C++ SIMD
     IBS kernel `hail/c/ibs.cpp:13-77`): IBS counts computed as indicator
     matmuls on device, then PLINK's E[IBS|IBD] inversion."""
@@ -222,28 +221,12 @@ def identity_by_descent(dataset: MatrixTable, maf=None, bounded: bool = True,
         with np.errstate(all='ignore'):
             p = n_alt.sum(axis=1) / np.maximum(2 * called.sum(axis=1), 1)
     keep = (p > 0) & (p < 1)
-    H = jnp.asarray(het[keep], jnp.float64)
-    R = jnp.asarray(hom_ref[keep], jnp.float64)
-    A = jnp.asarray(hom_var[keep], jnp.float64)
-    Cl = jnp.asarray(called[keep], jnp.float64)
     p = p[keep]
     q = 1 - p
 
-    if _use_pallas:
-        try:
-            from ..ops.ibs import ibs_counts
-            ibs0_m, ibs1_m, ibs2_m = ibs_counts(np.asarray(het[keep]), np.asarray(hom_ref[keep]),
-                                                np.asarray(hom_var[keep]), np.asarray(called[keep]))
-            ibs0 = np.asarray(ibs0_m)
-            ibs1 = np.asarray(ibs1_m)
-            ibs2 = np.asarray(ibs2_m)
-        except Exception:
-            _use_pallas = False
-    if not _use_pallas:
-        ibs0 = np.asarray(R.T @ A + A.T @ R)
-        ibs1 = np.asarray(H.T @ (R + A) + (R + A).T @ H)
-        shared = np.asarray(Cl.T @ Cl)
-        ibs2 = shared - ibs0 - ibs1
+    from ..ops.ibs import ibs_counts
+    ibs0, ibs1, ibs2 = ibs_counts(np.asarray(het[keep]), np.asarray(hom_ref[keep]),
+                                  np.asarray(hom_var[keep]), np.asarray(called[keep]))
     shared = ibs0 + ibs1 + ibs2
 
     # PLINK expected IBS given IBD state (Purcell et al. 2007)

@@ -3,8 +3,8 @@
 Compiled on first use with g++ (cached as a .so next to the source) and
 loaded via ctypes — the framework's equivalent of the reference's prebuilt
 `libhail.so` (`hail/c/Makefile`, `methods/IBSFFI.scala:21`): host-side native
-code where python can't keep the chips fed; device kernels stay in
-jax/pallas.
+code where python can't keep the device fed; device kernels stay in
+jax.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 // hail_tpu native kernels: parallel BGZF decompression + fast VCF GT parse.
 //
-// TPU-native analogue of the reference's host-side native layer: the
+// Analogue of the reference's host-side native layer: the
 // seekable block-gzip codec (`hail/hail/src/java/is/hail/io/compress/
 // BGzipInputStream.java`) and the hot VCF parse loop
 // (`is/hail/io/vcf/LoadVCF.scala:224-1311`) — the pieces that keep the

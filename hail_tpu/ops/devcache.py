@@ -2,7 +2,7 @@
 
 The reference keeps hot data resident via Spark block caching / explicit
 `.persist()` (TableIR persist, BlockMatrix cache). Here the analogous cost is
-the host→device ship of packed entry blocks through the PCIe/tunnel every
+the host→device ship of packed entry blocks over PCIe every
 time a method (linreg, GRM, PCA, ...) touches a MatrixTable's entries — a
 QC→linreg→PCA pipeline would otherwise re-stage identical bytes per action
 (round-3 verdict weak #5).
@@ -12,17 +12,23 @@ memoized MatrixBatch — stable across actions thanks to ir/memcache) plus a
 derivation fingerprint (which expression/slice produced the buffer). Entries
 die with their anchor (weakref callback) or by LRU eviction under a byte
 budget (flag `device_cache_bytes`, env HAIL_TPU_DEVICE_CACHE_BYTES;
-0 disables). A warm method call does zero host per-entry work and zero h2d.
+0 disables). Without either, the budget is half of what the default device
+reports as its memory limit (`memory_stats()['bytes_limit']`, the pool JAX
+reserved), leaving the other half to the kernels' working set; a device
+that reports no stats (the CPU) gets a fixed 8 GiB. A warm method call does
+zero host per-entry work and zero h2d.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 from collections import OrderedDict
 from typing import Any, Callable, Tuple
 
-_DEFAULT_CAP = 8 * 1024 * 1024 * 1024   # 8 GiB of the v5e's 16 GiB HBM
+_DEVICE_SHARE = 0.5
+_NO_STATS_CAP = 8 * 1024 * 1024 * 1024
 
 _lock = threading.RLock()
 # key -> (buffers, nbytes); OrderedDict end = most recently used
@@ -48,7 +54,19 @@ def _cap() -> int:
                 return int(v)
             except (TypeError, ValueError):
                 pass
-    return _DEFAULT_CAP
+    return _default_cap()
+
+
+def _device_cap(device) -> int:
+    """Cache budget for `device`: a fixed share of its memory limit."""
+    limit = (device.memory_stats() or {}).get('bytes_limit')
+    return int(limit * _DEVICE_SHARE) if limit else _NO_STATS_CAP
+
+
+@functools.lru_cache(maxsize=None)
+def _default_cap() -> int:
+    import jax
+    return _device_cap(jax.devices()[0])
 
 
 def _nbytes(buffers) -> int:

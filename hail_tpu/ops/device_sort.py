@@ -1,9 +1,9 @@
 """Device-tier distributed sort: sample-pivot range exchange over the mesh.
 
-The TPU-native shuffle tier of `Table.order_by` (reference
+The device shuffle tier of `Table.order_by` (reference
 `lowering/LowerDistributedSort.scala:161,320-464` — sample pivots, range-
 partition, per-range local sort; there via Spark exchanges, here via
-`shard_map` + `lax.all_to_all` over ICI).
+`shard_map` + `lax.all_to_all` between the devices).
 
 The device computes the sorted PERMUTATION, not the row payload motion: keys
 and global row-ids ride the all_to_all; the host applies the resulting id
@@ -81,23 +81,14 @@ def device_range_sort(keys: np.ndarray, ascending: bool,
     cap = _next_pow2(int(counts.max()))
 
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    try:
-        from jax import shard_map as _smap
-        def shard_map(**kw):                  # jax>=0.8 signature
-            kw.pop('check_rep', None)
-            return lambda f: _smap(f, **kw)
-    except ImportError:                       # older jax
-        from jax.experimental.shard_map import shard_map as _esmap
-        def shard_map(**kw):
-            return lambda f: _esmap(f, **kw)
     mesh = Mesh(np.asarray(devs), ('d',))
     sh = NamedSharding(mesh, P('d'))
     k_sh = jax.device_put(jnp.asarray(k), sh)
     i_sh = jax.device_put(jnp.asarray(ids), sh)
     piv = jnp.asarray(pivots)
 
-    @shard_map(mesh=mesh, in_specs=(P('d'), P('d'), P()),
-               out_specs=(P('d'), P('d')), check_rep=False)
+    @partial(jax.shard_map, mesh=mesh, in_specs=(P('d'), P('d'), P()),
+             out_specs=(P('d'), P('d')), check_vma=False)
     def exchange(lk, li, pv):
         bucket = jnp.searchsorted(pv, lk, side='right').astype(jnp.int32)
         order = jnp.argsort(bucket, stable=True)   # keeps id-order in-bucket

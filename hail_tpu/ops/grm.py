@@ -1,10 +1,10 @@
-"""Exact int8 digit-plane GRM: K = Zᵀ Z on the MXU at int8 speed, f64 parity.
+"""Exact int8 digit-plane GRM: K = Zᵀ Z from int8 GEMMs, f64 parity.
 
-TPU-native replacement for the reference's Breeze/Spark BlockMatrix GRM
+Device replacement for the reference's Breeze/Spark BlockMatrix GRM
 (`hail/python/hail/methods/statgen.py` genetic_relatedness_matrix →
-`is/hail/linalg/BlockMatrix.scala` tiled f64 GEMM). A v5e's f64-emulated
-matmul runs at ~1.8 TFLOPS while its int8 MXU runs at ~394 TOPS, so the win
-is to never materialize the f64 normalized-genotype matrix at all.
+`is/hail/linalg/BlockMatrix.scala` tiled f64 GEMM). The f64
+normalized-genotype matrix is never materialized: the kernel reads int8
+indicator matrices, and the normalization lives in per-variant weights.
 
 With per-variant allele frequency p_v, weight w_v = 1/(2 p_v (1-p_v)) (the
 GRM normalization d_v², scaled by 1/m outside), called-indicator C and
@@ -18,7 +18,7 @@ zero-at-missing genotypes gz ∈ {0,1,2}:
 Every sum is Σ_v u_v A_vs B_vt with A, B ∈ {0,1} matrices (gz splits into
 the indicators B1 = gz≥1 and B2 = gz=2) and u a per-variant f64 weight.
 Decomposing u into int8 digit planes (u_v ≈ Σ_k c_k q_kv, |q| ≤ 127) makes
-each term a sum of pure int8 MXU GEMMs — Aᵀ (q_k ∘ B) with exact int32
+each term a sum of pure int8 GEMMs — Aᵀ (q_k ∘ B) with exact int32
 accumulation — recombined in f64. Exactness is limited only by the weight
 quantization: 7 planes × 7 bits ≈ 2⁻⁴⁹ relative, far below the 1e-8 parity
 bar (tests assert ≤1e-12 vs the f64 oracle).
@@ -73,7 +73,7 @@ def _grm_strip(b1, b2, c, b1s, b2s, cs, qw, sw, qwp, swp, qwp2, swp2,
     dn = (((0,), (0,)), ((), ()))   # contract over variants
 
     def sweep(A, Bs, q, s):
-        # Σ_k s_k · Aᵀ (q_k ∘ Bs): int8 MXU GEMMs, exact int32, f64 recombine
+        # Σ_k s_k · Aᵀ (q_k ∘ Bs): int8 GEMMs, exact int32, f64 recombine
         def body(k, acc):
             qb = (jnp.take(q, k, axis=0)[:, None] * Bs).astype(jnp.int8)
             g = jax.lax.dot_general(A, qb, dn,

@@ -1,10 +1,10 @@
 """Device-banded windowed r² for LD pruning.
 
-TPU-first replacement for the reference's LocalLDPrune streaming CPU kernel
+Device replacement for the reference's LocalLDPrune streaming CPU kernel
 (`is/hail/methods/LocalLDPrune.scala` bit-packed SIMD r²) + its windowed
 BlockMatrix stage (`hail/python/hail/methods/statgen.py:4708 ld_prune`
 stage 2): instead of per-pair dot products on the host, every variant's r²
-against its W predecessors is produced by blocked MXU GEMMs over the
+against its W predecessors is produced by blocked GEMMs over the
 standardized genotype matrix, thresholded ON DEVICE, and fetched as one
 small boolean band per block — the greedy window scans in ld_prune then run
 on booleans with no further linear algebra.
@@ -91,6 +91,6 @@ def standardize_rows_device(gz8, m8):
     ok = ss > 0
     z = jnp.where(ok[:, None], centered / jnp.where(ok, ss, 1.0)[:, None],
                   0.0)
-    # one stacked d2h for both stats (each fetch is a relay round trip)
+    # one stacked d2h for both stats
     stats = np.asarray(jnp.stack([mean, ok.astype(jnp.float64)]))
     return z, stats[0], stats[1] > 0.5

@@ -1,7 +1,7 @@
 """Device-tier QC kernels: fused per-variant and per-sample counters.
 
 The jnp/jit tier for `variant_qc` / `sample_qc` over packed-call blocks —
-the TPU replacement for the reference's generated seqOp bytecode loops
+the device replacement for the reference's generated seqOp bytecode loops
 (`agg/CallStatsAggregator`, `methods/qc.py` hot paths): one fused kernel
 computes all counters in a single pass over the (R, C) block. Used by
 hail_tpu.methods.qc when the block is large enough to amortize dispatch

@@ -1,4 +1,4 @@
-"""Jitted regression kernels (the MXU tier).
+"""Jitted regression kernels (the device GEMM tier).
 
 These are the hot GWAS loops: batched per-variant OLS via the projection
 trick and batched Newton iterations for logistic/poisson regression —
@@ -56,8 +56,8 @@ def linreg_block(G: jnp.ndarray, missing: jnp.ndarray, sqrtw: jnp.ndarray,
     Gi = _impute_mean_nan(G, missing)
     X = Gi * sqrtw[None, :]                  # (R, n)
     sum_x = jnp.sum(X, axis=1)
-    Qtx = X @ Q                              # (R, k)   [MXU]
-    ytx = X @ Ys                             # (R, P)   [MXU]
+    Qtx = X @ Q                              # (R, k)   [GEMM]
+    ytx = X @ Ys                             # (R, P)   [GEMM]
     xyp = ytx - Qtx @ Qty                    # (R, P)
     xxp = jnp.sum(X * X, axis=1) - jnp.sum(Qtx * Qtx, axis=1)
     xxp_rec = 1.0 / xxp
@@ -69,7 +69,7 @@ def linreg_block(G: jnp.ndarray, missing: jnp.ndarray, sqrtw: jnp.ndarray,
 
 @partial(jax.jit, static_argnames=())
 def linreg_block_f32(G, missing, sqrtw, Q, Ys, Qty, yyp, d):
-    """f32 fast path of linreg_block (~2-3x on TPU; for when 1e-8 JVM parity
+    """f32 variant of linreg_block (for when 1e-8 JVM parity
     is not required — betas agree to ~1e-5 relative)."""
     return linreg_block(G.astype(jnp.float32), missing,
                         sqrtw.astype(jnp.float32), Q.astype(jnp.float32),
@@ -101,8 +101,8 @@ def linreg_stats(G: np.ndarray, missing: np.ndarray, sqrtw, Q: np.ndarray,
 # ---------------------------------------------------------------------------
 
 def _psd_solve(H, b):
-    """Batched SPD solve via Cholesky (TPU supports f64 Cholesky but not LU;
-    the Newton Hessians here are SPD)."""
+    """Batched SPD solve via Cholesky (the Newton Hessians here are SPD, so
+    Cholesky needs half the work of LU)."""
     L = jnp.linalg.cholesky(H)
     y = jax.lax.linalg.triangular_solve(L, b[..., None], left_side=True, lower=True)
     x = jax.lax.linalg.triangular_solve(L, y, left_side=True, lower=True,

@@ -1,6 +1,6 @@
 """Device mesh + sharding helpers.
 
-The TPU-native replacement for the reference's GridPartitioner/Spark-RDD
+The device replacement for the reference's GridPartitioner/Spark-RDD
 block distribution (`is/hail/linalg/GridPartitioner.scala`) and for its
 tree-reduce fabric: a 2-D `jax.sharding.Mesh` with NamedSharding —
 XLA inserts the SUMMA collectives for sharded matmuls (SURVEY §2.4) and psum

@@ -5,7 +5,7 @@ Capability parity with reference `is/hail/stats/LinearMixedModel.scala` /
 `hail/python/hail/stats/linear_mixed_model.py`: y = Xβ + g + ε with
 g ~ N(0, σ²_g K), ε ~ N(0, σ²_e I). With K = U S Uᵀ, rotating by Uᵀ
 diagonalizes the covariance: Var(Uᵀy) = σ²_g (S + δ I), δ = σ²_e/σ²_g.
-The device tier does the eigendecomposition and rotations (MXU); the scalar
+The device tier does the eigendecomposition and rotations (GEMMs); the scalar
 REML optimization over log δ runs per dataset on the host.
 """
 
@@ -171,7 +171,7 @@ class LinearMixedModel:
         form for all variants at once (rank-one update of the weighted
         normal equations — the augmented RSS is RSS_X - (gᵀWM_Xy)²/(gᵀWM_Xg)
         and logdet grows by log of the Schur complement), with the heavy
-        GEMMs on the device (MXU). The per-variant Python loop is O(m·k³);
+        GEMMs on the device. The per-variant Python loop is O(m·k³);
         this is two (k×n)·(n×m) GEMMs + elementwise.
         """
         import scipy.stats as st

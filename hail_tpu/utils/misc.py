@@ -341,8 +341,8 @@ def get_1kg(output_dir: str, overwrite: bool = False) -> None:
     _synth_vcf(vcf_path, samples, contigs, 1200, seed=1001)
     hl.import_vcf(vcf_path, min_partitions=4).write(mt_path, overwrite=True)
     with open(annot_path, 'w') as f:
-        f.write('Sample\tPopulation\tSuperPopulation\tisFemale\tPurpleHair\t'
-                'CaffeineConsumption\n')
+        f.write('\t'.join(['Sample', 'Population', 'SuperPopulation', 'isFemale',
+                           'PurpleHair', 'CaffeineConsumption']) + '\n')
         for s in samples:
             pop, superpop = _1KG_POPS[int(rng.integers(len(_1KG_POPS)))]
             f.write(f'{s}\t{pop}\t{superpop}\t'

@@ -75,3 +75,28 @@ def test_unweakrefable_anchor_falls_through():
     out = devcache.get(42, ('x',), lambda: jnp.zeros(3))   # int: no weakref
     assert out.shape == (3,)
     assert devcache.stats()['entries'] == 0
+
+
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_cap_is_share_of_device_memory_limit():
+    dev = _FakeDevice({'bytes_limit': 60 * 2**30, 'bytes_in_use': 2**20})
+    assert devcache._device_cap(dev) == int(60 * 2**30 * devcache._DEVICE_SHARE)
+
+
+@pytest.mark.parametrize('stats', [None, {}, {'bytes_in_use': 5}])
+def test_cap_without_device_stats_is_fixed(stats):
+    assert devcache._device_cap(_FakeDevice(stats)) == devcache._NO_STATS_CAP
+
+
+def test_env_overrides_derived_cap(monkeypatch):
+    monkeypatch.setenv('HAIL_TPU_DEVICE_CACHE_BYTES', '12345')
+    assert devcache._cap() == 12345
+    monkeypatch.delenv('HAIL_TPU_DEVICE_CACHE_BYTES')
+    assert devcache._cap() == devcache._default_cap()

@@ -52,8 +52,8 @@ def test_exact_grm_no_missing_and_monomorphic_rows():
 
 
 def test_exact_grm_via_public_method():
-    """genetic_relatedness_matrix agrees with the strip kernel (the method
-    rides ExactGrm on TPU; on CPU it uses the f64 BlockMatrix matmul)."""
+    """genetic_relatedness_matrix (which runs ExactGrm) agrees with the
+    strip kernel and the f64 oracle."""
     import jax
     import hail_tpu as hl
 

@@ -1,4 +1,4 @@
-"""int8 fast-path linreg: pallas (interpret) vs jnp reference vs f64 kernel."""
+"""int8-storage linreg kernels (ops/linreg_i8.py) vs the f64 kernel."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,8 +27,7 @@ def test_i8_matches_f64_kernel():
     W = np.concatenate([Q, Ys], axis=1)
     out8 = linreg_block_i8(jnp.asarray(G8), jnp.asarray(W, np.float32),
                            jnp.asarray(Qty), jnp.asarray(yyp),
-                           jnp.asarray(float(dof)), Q.shape[1],
-                           use_pallas=False)
+                           jnp.asarray(float(dof)), Q.shape[1])
     Gf = np.where(miss, 0.0, G8).astype(np.float64)
     ones = jnp.ones(Gf.shape[1])
     out64 = linreg_block(jnp.asarray(Gf), jnp.asarray(miss), ones,
@@ -44,27 +43,13 @@ def test_i8_matches_f64_kernel():
                                    rtol=rtol, atol=1e-4)
 
 
-def test_pallas_interpret_matches_ref():
-    G8, _, Q, Ys, Qty, yyp, dof = _make(R=64, N=256, K=2, P=1, seed=1)
-    W = jnp.asarray(np.concatenate([Q, Ys], axis=1), jnp.float32)
-    a = linreg_block_i8(jnp.asarray(G8), W, jnp.asarray(Qty), jnp.asarray(yyp),
-                        jnp.asarray(float(dof)), Q.shape[1],
-                        use_pallas=True, interpret=True)
-    b = linreg_block_i8(jnp.asarray(G8), W, jnp.asarray(Qty), jnp.asarray(yyp),
-                        jnp.asarray(float(dof)), Q.shape[1],
-                        use_pallas=False)
-    for x, y in zip(a, b):
-        np.testing.assert_allclose(np.asarray(x), np.asarray(y),
-                                   rtol=1e-5, atol=1e-5)
-
-
 def test_unpadded_shapes():
-    # R, N not multiples of the tiles
+    # R, N not multiples of 8 or 16
     G8, _, Q, Ys, Qty, yyp, dof = _make(R=77, N=333, K=2, P=1, seed=2)
     W = jnp.asarray(np.concatenate([Q, Ys], axis=1), jnp.float32)
     out = linreg_block_i8(jnp.asarray(G8), W, jnp.asarray(Qty),
                           jnp.asarray(yyp), jnp.asarray(float(dof)),
-                          Q.shape[1], use_pallas=False)
+                          Q.shape[1])
     assert out[2].shape == (77, 1)
     assert np.isfinite(np.asarray(out[2])).all()
 

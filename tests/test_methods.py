@@ -150,7 +150,7 @@ def test_pc_relate(bn):
 
 
 def test_ibd(bn):
-    t = hl.identity_by_descent(bn, _use_pallas=False)
+    t = hl.identity_by_descent(bn)
     rows = t.take(5)
     for r in rows:
         assert 0 <= r.ibd.PI_HAT <= 1
